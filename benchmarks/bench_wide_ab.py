@@ -17,13 +17,9 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import jax  # noqa: E402
+from sslap_tpu.utils import enable_compile_cache  # noqa: E402
 
-jax.config.update(
-    "jax_compilation_cache_dir",
-    os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                 ".jax_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
+enable_compile_cache()
 
 
 def main():

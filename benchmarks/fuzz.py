@@ -8,7 +8,7 @@ and structurally infeasible instances (must raise InfeasibleError, never
 hang).  Every failure prints a self-contained repro line (seed + scenario).
 
 Runs on CPU with 8 virtual devices (same trick as tests/conftest.py) so it
-needs no TPU.  Shapes are drawn from a small pool so the jit cache stays
+needs no accelerator.  Shapes are drawn from a small pool so the jit cache stays
 hot across iterations.
 
 Usage:  python benchmarks/fuzz.py --iters 500 --seed 0

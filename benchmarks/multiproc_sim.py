@@ -1,14 +1,14 @@
 """Multi-PROCESS simulation of the multi-host sharded hybrid (T8 / DCN).
 
-The environment has one host and one TPU chip, so the pod-scale story
-(BASELINE config 5, SURVEY.md SS3b T8 "cross-host price all-reduce") cannot
-run on real DCN.  This driver gets as close as one box allows: it launches
+The multi-host story (BASELINE config 5, SURVEY.md SS3b T8 "cross-host
+price all-reduce") needs several hosts.  This driver gets as close as one
+box allows: it launches
 N independent Python PROCESSES, each owning its own XLA CPU client with
 ``--xla_force_host_platform_device_count`` virtual devices, joined via
 ``jax.distributed.initialize`` into one global runtime.  Collectives between
 the processes ride XLA's cross-process Gloo transport over TCP -- a real
 two-client exchange with serialization, socket hops, and process-boundary
-synchronization, i.e. the same code path shape a DCN pod takes (different
+synchronization, i.e. the same code path shape a multi-host run takes (different
 constants, same topology: 'rows' axis spanning hosts via
 mesh_utils.create_hybrid_device_mesh in parallel/mesh.make_mesh).
 

@@ -52,13 +52,9 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import jax  # noqa: E402
+from sslap_tpu.utils import enable_compile_cache  # noqa: E402
 
-jax.config.update(
-    "jax_compilation_cache_dir",
-    os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                 ".jax_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
+enable_compile_cache()
 
 
 def log(*a):
@@ -103,9 +99,8 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--n", type=int, default=1_000_000)
     ap.add_argument("--frames", type=int, default=3)
-    ap.add_argument("--mode", default=None,
-                    help="solver mode (default: hybrid if the device "
-                         "answers, else cpu)")
+    ap.add_argument("--mode", default="hybrid",
+                    help="solver mode (default: hybrid)")
     ap.add_argument("--sigma", type=float, default=10.0,
                     help="per-frame cost drift stddev (cost range 1..1000)")
     ap.add_argument("--warm", default="fr", choices=["raw", "relax", "fr"],
@@ -136,16 +131,12 @@ def main():
 
     import functools
     from sslap_tpu import AuctionSolver as _AuctionSolver, hopcroft_solve
-    from sslap_tpu.utils import device_alive
     # One switch flips the host finisher for every arm (cold and warm):
     # the A/B contract is engine-vs-engine on identical workloads.
     AuctionSolver = functools.partial(_AuctionSolver,
                                       gs_engine=args.gs_engine)
 
     mode = args.mode
-    if mode is None:
-        mode = "hybrid" if device_alive() else "cpu"
-        log(f"mode resolved: {mode}")
 
     import bench
     n = args.n

@@ -106,10 +106,9 @@ def main():
           f"(vs {m['its']} sync: the pipeline's round-count price)")
 
     # Mesh-balanced ladder buffers: narrow-tier compute shrinks with the
-    # mesh (~2C/D buffers + local spill rebuilds) -- the multi-chip
-    # scaling knob (benchmarks/project_scaling.py: projected d=8
-    # efficiency ~33% -> ~65%).  Opt-in: costs trunc=0 bit-exactness,
-    # never objective optimality.
+    # mesh (~2C/D buffers + local spill rebuilds) -- the multi-card
+    # scaling knob.  Opt-in: costs trunc=0 bit-exactness, never
+    # objective optimality.
     bal = auction_solve_sharded_hybrid(loc=loc, val=val, shape=(n, n),
                                        mesh=mesh, trunc=64,
                                        ladder_balance=True,

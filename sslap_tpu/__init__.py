@@ -1,8 +1,8 @@
-"""sslap_tpu: TPU-native sparse linear assignment (auction algorithm).
+"""sslap_tpu: sparse linear assignment on JAX (auction algorithm).
 
-A from-scratch JAX/XLA/Pallas framework with the capabilities of the
-reference `OllieBoyne/sslap` (behavioral contract: SURVEY.md; the reference
-mount was empty this session, see SURVEY.md SS0): min/max-cost LAP over
+A from-scratch JAX/XLA framework, run on NVIDIA GPUs, with the
+capabilities of the reference `OllieBoyne/sslap` (behavioral contract:
+SURVEY.md; see SURVEY.md SS0 on the reference source): min/max-cost LAP over
 dense or COO/CSR sparse cost matrices via Bertsekas' auction algorithm with
 epsilon-scaling, Hopcroft-Karp feasibility checking, batched independent
 instances, and row-sharded multi-device execution.

@@ -1,10 +1,9 @@
 """Candidate-list tiered auction solve (single-device fast path, round 2).
 
-Measured motivation (PERF.md round-2 table, PROBE_r2.json): every round of
-the compact solver pays (K+1) x ~7 ns of scalar gathers per active row
-(price gather dominates), and full-width phase-start rounds cost ~190 ms at
-n = 1M -- together ~2/3 of the device pass.  This engine is the classic
-Bertsekas candidate-list ("similar objects") auction mapped to TPU:
+Motivation: every round of the compact solver pays K+1 scalar gathers per
+active row (the price gather dominates), and full-width phase-start rounds
+gather every stored entry.  This engine is the classic Bertsekas
+candidate-list ("similar objects") auction mapped to the device:
 
   Each row carries a SHORTLIST of its kappa best entries (columns + values)
   plus a threshold tau = the (kappa+1)-th best w at build time.  Prices are

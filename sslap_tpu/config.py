@@ -43,15 +43,17 @@ class AuctionConfig:
     keep_assignment: bool = True         # warm-started eps phases
     dtype: Optional[object] = None       # force device dtype
     wide_rounds: Optional[bool] = None   # window-gather phase starts on
-                                         # the square hybrid (None = auto:
-                                         # on at n >= 400k; see
+                                         # the square hybrid (None = auto,
+                                         # which is off; see
                                          # ops/widebid.py)
     fine_ladder: Optional[bool] = None   # fine {2^k, 3*2^(k-1)} tier
                                          # interleave below 32768 on the
                                          # square hybrid (None = env
                                          # SSLAP_TPU_FINE_LADDER, default
-                                         # ON since round 5's on-chip A/B;
-                                         # see compact.default_tiers)
+                                         # ON, chosen on the earlier
+                                         # accelerator and unmeasured on
+                                         # the H100; see
+                                         # compact.default_tiers)
     engine: str = "auto"                 # square device engine: 'auto'|
                                          # 'compact'|'candidates'|'dense'
     gs_engine: str = "auto"              # host finisher: 'auto' (= 'fr'

@@ -1,7 +1,7 @@
 """Native (C++) host-side runtime components.
 
-The reference's native tier is Cython for the hot solve loop; on TPU the
-hot loop lives in XLA/Pallas, so the native tier here covers *host-side*
+The reference's native tier is Cython for the hot solve loop; here the
+device hot loop lives in XLA, so the native tier covers *host-side*
 work the way the reference's Cython covers ingest/feasibility: COO->ELL
 building and Hopcroft-Karp over CSR.  Compiled on demand with g++ via
 ctypes (no pybind11 in this environment); every consumer falls back to the

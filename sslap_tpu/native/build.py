@@ -2,7 +2,9 @@
 
 No pybind11 in this environment (see repo docs), so the native library uses
 a plain C ABI over numpy buffers.  The shared object is compiled once per
-source hash into a cache directory and memoized.
+(source, compiler flags, host CPU) into a cache directory and memoized:
+``-march=native`` code built on one CPU may not run on another, so a
+build directory copied to a different machine is never reused there.
 """
 
 from __future__ import annotations
@@ -10,6 +12,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import platform
 import subprocess
 import tempfile
 from pathlib import Path
@@ -18,6 +21,7 @@ from typing import Optional, Tuple
 import numpy as np
 
 _SRC = Path(__file__).with_name("sslap_native.cpp")
+_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-march=native")
 _LIB: Optional[ctypes.CDLL] = None
 _TRIED = False
 
@@ -32,6 +36,33 @@ def _cache_dir() -> Path:
     return Path(tempfile.gettempdir()) / "sslap_tpu_native"
 
 
+def host_cpu_tag() -> str:
+    """Identity of this host's CPU for the build cache key: architecture,
+    model name and instruction-set flags (what ``-march=native`` keys
+    on)."""
+    parts = [platform.machine()]
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                key = line.split(":", 1)[0].strip()
+                if key in ("model name", "flags", "Features"):
+                    parts.append(line.strip())
+                elif not line.strip() and len(parts) > 1:
+                    break                   # first processor block only
+    except OSError:
+        parts.append(platform.processor())
+    return "\n".join(parts)
+
+
+def so_name(src: bytes, flags=_FLAGS, host: Optional[str] = None) -> str:
+    """Cache file name of the shared object built from ``src`` with
+    ``flags`` on ``host`` (default: this machine)."""
+    h = hashlib.sha256(src)
+    h.update("\0".join(flags).encode())
+    h.update((host_cpu_tag() if host is None else host).encode())
+    return f"sslap_native_{h.hexdigest()[:16]}.so"
+
+
 def load_native() -> Optional[ctypes.CDLL]:
     """Compile (if needed) and load the native library; None on failure."""
     global _LIB, _TRIED
@@ -41,17 +72,12 @@ def load_native() -> Optional[ctypes.CDLL]:
     if os.environ.get("SSLAP_TPU_NO_NATIVE"):
         return None
     try:
-        src = _SRC.read_bytes()
-        tag = hashlib.sha256(src).hexdigest()[:16]
         cache = _cache_dir()
         cache.mkdir(parents=True, exist_ok=True)
-        so = cache / f"sslap_native_{tag}.so"
+        so = cache / so_name(_SRC.read_bytes())
         if not so.exists():
             tmp = so.with_suffix(f".tmp{os.getpid()}.so")
-            cmd = [
-                "g++", "-O3", "-std=c++17", "-shared", "-fPIC",
-                "-march=native", str(_SRC), "-o", str(tmp),
-            ]
+            cmd = ["g++", *_FLAGS, str(_SRC), "-o", str(tmp)]
             subprocess.run(cmd, check=True, capture_output=True, timeout=120)
             os.replace(tmp, so)
         _LIB = ctypes.CDLL(str(so))
@@ -406,10 +432,9 @@ def auction_gs(indptr: np.ndarray, indices: np.ndarray, vals: np.ndarray,
     Returns bids performed, or -1 if max_bids was exhausted.
 
     ``prefetch`` selects a software-prefetching variant of the scan; on
-    this host it measures SLOWER (the out-of-order core already overlaps
-    the independent price loads; extra prefetches thrash the few line-fill
-    buffers of the 1-vCPU VM), so the plain loop is the default.  The
-    variant is kept for wider-core hosts."""
+    the 1-vCPU development VM it measured SLOWER (the out-of-order core
+    already overlaps the independent price loads), so the plain loop is
+    the default.  The variant is kept for wider-core hosts."""
     lib = load_native()
     assert lib is not None, "native library unavailable"
     n = sigma.shape[0]

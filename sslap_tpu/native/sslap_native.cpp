@@ -1,7 +1,7 @@
 // Native host-side runtime for sslap_tpu (C ABI, loaded via ctypes).
 //
 // The reference's native tier (Cython) owns ingest and feasibility
-// (SURVEY.md SS3a R2/R3).  On TPU the solve loop is XLA/Pallas; the native
+// (SURVEY.md SS3a R2/R3).  On the device the solve loop is XLA; the native
 // tier here accelerates the host-side pieces that sit off the device hot
 // path but on the end-to-end critical path for large instances:
 //   * Hopcroft-Karp maximum bipartite matching over CSR (feasibility check)
@@ -506,7 +506,7 @@ void sslap_eps_cs_stats_f32(int64_t n, int64_t K, const int32_t* cols,
 // Gauss-Seidel forward auction over CSR (transformed maximization values).
 //
 // Used two ways (SURVEY.md SS8 + hybrid design):
-//   1. Tail finisher for the TPU Jacobi solver: the device retires the
+//   1. Tail finisher for the device Jacobi solver: the device retires the
 //      massively-parallel bulk of each eps phase; the serial eviction
 //      chains that remain (O(n) Jacobi rounds' worth) are finished here in
 //      O(chain) bids.  Bid semantics match the device exactly (lowest-col

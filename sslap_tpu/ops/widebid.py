@@ -1,21 +1,18 @@
 """Window-gather wide-round bid: the column-window-grouped formulation.
 
-The full-width (phase-start) bid round's cost is ~entirely the random
-price gather ``prices[cols]`` at ~7 ns/element (XLA scalar lowering,
-PERF.md round-2 primitive table).  The ONE measured 16x-faster gather
-primitive on this stack is the one-hot window-128 gather (0.44 ns/elem,
-PROBE_r2): entries grouped by column window w = col // 128 share a
-single broadcast 128-lane price line, and the per-entry select is a
-VPU compare+select instead of a scalar load.
+The full-width (phase-start) bid round is one random price gather
+``prices[cols]`` per stored entry.  This module computes the same
+``w = a_ij - p_j`` without a scalar gather: entries grouped by column
+window w = col // 128 share a single broadcast 128-lane price line, and
+the per-entry pick is an elementwise compare+select.  That produces w in
+COLUMN-grouped order, while the per-row top-2 needs ROW-major order; the
+join back is a pair sort keyed by the STATIC destination index (the
+entry's row-major ELL position).
 
-That primitive produces ``w = a_ij - p_j`` in COLUMN-grouped order,
-while the per-row top-2 needs ROW-major order -- the join back is the
-whole game (every cross-order join measured 2.5-8.7 ns/elem).  This
-module implements the cheapest join: a pair sort keyed by the STATIC
-destination index (the entry's row-major ELL position), measured
-3.5 ns/elem at 10M pairs.  Budget (VERDICT r3 task 6): gather 0.44 +
-sort-join 3.5 + epsilon ~= 4 ns/elem vs the scalar-gather round's ~7 --
-keep only if the measured end-to-end round wins.
+It was built for an accelerator whose scalar gather was slow.  On the
+H100 the 4 MB price table of a 1M-column instance sits in L2, and the
+plain gather round beat this one at 1M (PERF.md), so ``wide_rounds``
+defaults to off.
 
 The layout is static per instance (cols never change; only prices do),
 so ``build_wide_layout`` runs once at ingest/construct time and the
@@ -79,7 +76,7 @@ def build_wide_layout(cols: np.ndarray, vals_t: np.ndarray,
     holds RAW costs and the transform + masking fuse into the build --
     with the native pass (native/build.py:wide_fill, a two-pass counting
     sort) the whole build is O(nnz) with no argsort and no [nnz] temps
-    (the numpy pipeline measured ~29 s at 1M x 10 on a contended host).
+    (the numpy pipeline is far slower at 1M x 10).
     Both paths are bit-identical.
     """
     n, K = cols.shape
@@ -172,7 +169,7 @@ def wide_w(layout: WideLayout, prices: jax.Array) -> jax.Array:
         prices = jnp.pad(prices, (0, layout.m_pad - m))
     p2d = prices.reshape(-1, WINDOW)                          # [NB, 128]
     iota = jnp.arange(WINDOW, dtype=jnp.int32)
-    oh = layout.coff[..., None] == iota                       # fused on VPU
+    oh = layout.coff[..., None] == iota                       # fused select
     pg = jnp.sum(jnp.where(oh, p2d[:, None, :],
                            jnp.zeros((), prices.dtype)), axis=-1)
     w_cg = (layout.vals_cg - pg).reshape(-1)

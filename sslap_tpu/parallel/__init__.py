@@ -1,9 +1,11 @@
 """Distribution layer (T2/T7/T8): row-partitioned auction over device meshes.
 
 The reference is single-process (SURVEY.md SS6 'Distributed communication
-backend: Absent'); this subpackage is the TPU-native scaling design -- a
-shard_map'd Jacobi round over a row-sharded ELL layout with replicated
-price/assignment state and per-round pmax/pmin combines over ICI/DCN.
+backend: Absent'); this subpackage is the multi-device scaling design --
+a shard_map'd Jacobi round over a row-sharded ELL layout with replicated
+price/assignment state and per-round pmax/pmin combines, which XLA hands
+to NCCL (NVLink between the cards of one host, the network between
+hosts).
 """
 
 from sslap_tpu.parallel.mesh import make_mesh, initialize_multihost

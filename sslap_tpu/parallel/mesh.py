@@ -1,10 +1,10 @@
 """Mesh construction helpers (T8).
 
-Single-slice: one 'rows' axis over all local devices (ICI).  Multi-host: a
-hybrid ('hosts', 'rows') mesh where the hosts axis rides DCN; the row
-partition maps shards so that the per-round price combine does its large
-reduction over ICI within a slice and only the small packed result over DCN
-(jax's hybrid mesh utilities order collectives that way automatically).
+One host: a 1-D 'rows' axis over all local devices in device order.  The
+four H100s of one host are joined all to all by NVLink, so every card
+reaches every other at the same rate and the axis order does not matter.
+Multi-host: the axis is ordered process-major, so each host's cards stay
+adjacent and the larger part of every price combine stays on NVLink.
 """
 
 from __future__ import annotations
@@ -99,8 +99,8 @@ def fetch_global(x) -> np.ndarray:
 def make_mesh(devices: Optional[Sequence[jax.Device]] = None,
               axis_name: str = "rows") -> Mesh:
     """1-D mesh over all (or given) devices.  For multi-host runs, uses the
-    hybrid mesh helper so the axis ordering keeps intra-host neighbors
-    adjacent (collectives ride ICI first, DCN last)."""
+    hybrid mesh helper so the axis ordering keeps each host's devices
+    adjacent (collectives ride NVLink first, the network last)."""
     if devices is not None:
         return Mesh(np.asarray(devices), (axis_name,))
     n_local = len(jax.local_devices())
@@ -116,7 +116,7 @@ def make_mesh(devices: Optional[Sequence[jax.Device]] = None,
             # Backends whose devices carry no slice_index (e.g. the
             # multi-process CPU simulation): jax.devices() is already
             # process-major, which keeps intra-process neighbors adjacent
-            # on the 1-D axis -- the same ICI-first ordering the hybrid
+            # on the 1-D axis -- the same host-major ordering the hybrid
             # helper produces.
             pass
     return Mesh(np.asarray(jax.devices()), (axis_name,))

@@ -2,8 +2,8 @@
 
 The plain sharded round (parallel/sharded.py) serializes
     bid -> local resolve -> ALL-REDUCE -> commit
-so every round stalls on the cross-device combine (ICI within a slice, DCN
-across hosts).  This module pipelines it one round deep:
+so every round stalls on the cross-device combine (NVLink within a host,
+the network across hosts).  This module pipelines it one round deep:
 
     round k body:
       1. BID against the *entry* prices (stale by one commit)   -- compute

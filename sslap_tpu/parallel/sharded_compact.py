@@ -147,9 +147,7 @@ def _solve_sharded_tiered_jit(
     ``balance=True`` sizes each shard's ladder buffer at
     min(C, n_local, max(2C/D, balance_floor)) instead of min(C, n_local):
     ladder-round compute then SHRINKS with the mesh (the capacity-C
-    buffers are the design's Amdahl serial fraction -- see
-    benchmarks/project_scaling.py: d=8 efficiency ~33% unbalanced vs
-    ~65% balanced).  The 2x slack absorbs mild imbalance; when a shard's
+    buffers are the design's Amdahl serial fraction).  The 2x slack absorbs mild imbalance; when a shard's
     actives still exceed its buffer, the overflow rows wait OUTSIDE the
     buffer (they stay unassigned, the global gate keeps counting them)
     and a LOCAL spill-rebuild -- an O(n_local) sort, no collective --
@@ -206,9 +204,7 @@ def _solve_sharded_tiered_jit(
             pmax/pmin combine (2x[m] collectives; 3x with the violator
             scan's owner re-convergence at phase starts).  With a wide
             layout, w comes from the window-gather formulation
-            (ops/widebid.py: 1.69x the scalar gather on-chip,
-            bit-identical) -- the wide regime carries ~45% of all bids,
-            so this is the multi-chip path's share of the round-4 win."""
+            (ops/widebid.py, bit-identical to the scalar gather)."""
             if wide_l is not None:
                 from sslap_tpu.ops.widebid import wide_w
                 w = wide_w(wide_l, prices)
@@ -667,8 +663,7 @@ def auction_solve_sharded_hybrid(
 
     ``ladder_balance=True`` sizes ladder buffers at ~2C/D per shard
     (floor ``balance_floor``) instead of C, so ladder-round compute
-    shrinks with the mesh -- the scaling-critical knob
-    (benchmarks/project_scaling.py: d=8 efficiency ~33% -> ~65%).
+    shrinks with the mesh -- the scaling-critical knob.
     Overflowing shards spill rows out of the buffer and readmit them via
     local rebuilds (meta ``ladder_rebuilds`` = total rebuild sorts summed
     over shards and phases).  Costs the
@@ -757,11 +752,8 @@ def auction_solve_sharded_hybrid(
     # Window-gather full-width rounds (ops/widebid.py), per shard: each
     # shard's local rows get their own column-window layout with a
     # common group width E; prices are replicated so the gather itself
-    # needs no collective.  Same auto-gate and bit-parity contract as
-    # the single-chip hybrid (PERF.md round 4: 1.69x the scalar-gather
-    # wide round; the wide regime carries ~45% of all bids).
-    if wide_rounds is None:
-        wide_rounds = n >= 400_000
+    # needs no collective.  Same bit-parity contract as the single-card
+    # hybrid, and likewise None (auto) resolves to off.
     wide_np = None
     if wide_rounds:
         from sslap_tpu.ops.widebid import build_sharded_wide_layouts
@@ -827,7 +819,7 @@ def auction_solve_sharded_hybrid(
     owner[sigma[assigned]] = np.nonzero(assigned)[0].astype(np.int32)
     t_gs0 = time.perf_counter()
     bids = _hybrid._gs(indptr, indices, data_csr, prices, sigma, owner,
-                       e_min, bigp, 0, 100 * n + 10_000_000)
+                       e_min, bigp, 0, _hybrid.tail_bid_budget(n))
     t_gs = time.perf_counter() - t_gs0
 
     unassigned = int(((sigma < 0) & (np.diff(indptr) > 0)).sum())

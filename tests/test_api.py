@@ -129,3 +129,42 @@ def test_warm_relax_price_rollback():
         s.solve(warm_prices=r1["prices"], warm_relax=0.0)
     with pytest.raises(ValueError):
         s.solve(warm_prices=r1["prices"], warm_relax=1.5)
+
+
+@pytest.mark.parametrize("case", ["at_crossover", "below_crossover",
+                                  "no_native", "float64"])
+def test_auto_mode_routing(case, monkeypatch):
+    import sslap_tpu.api as api
+    from sslap_tpu import hybrid as H
+    rng = np.random.default_rng(0)
+    C = rng.integers(1, 100, (32, 32)).astype(
+        np.float64 if case == "float64" else np.int64)
+    solver = AuctionSolver(C, cardinality_check=False,
+                           dtype=np.float64 if case == "float64" else None)
+    crossover = {"at_crossover": 32}.get(case, 33)
+    monkeypatch.setattr(api, "DEFAULT_CROSSOVER", crossover)
+    if case == "no_native":
+        monkeypatch.setattr(H, "native_available", lambda: False)
+    expect = {"at_crossover": "hybrid", "below_crossover": "cpu",
+              "no_native": "device", "float64": "cpu"}[case]
+    assert solver._resolve_mode() == expect
+
+
+def test_hybrid_device_error_propagates(monkeypatch):
+    """A device failure in the hybrid pass raises; nothing re-solves on
+    the CPU behind the caller's back."""
+    import jax
+    from sslap_tpu import hybrid as H
+    calls = []
+
+    def boom(*a, **kw):
+        calls.append(kw.get("mode"))
+        raise jax.errors.JaxRuntimeError("device lost")
+
+    monkeypatch.setattr(H, "solve_hybrid", boom)
+    rng = np.random.default_rng(1)
+    C = rng.integers(1, 100, (16, 16))
+    with pytest.raises(jax.errors.JaxRuntimeError, match="device lost"):
+        AuctionSolver(C, mode="hybrid", engine="compact",
+                      cardinality_check=False).solve()
+    assert calls == ["hybrid"]

@@ -1,11 +1,9 @@
 """Single-instance dense engine (engine='dense'): the batched dense-chunk
 hybrid (dense_batch.py) serving B=1 through the public API.
 
-Why it exists: a fully dense cost matrix through the ELL path pays
-per-entry scalar gathers; the dense formulation streams [C, m] rows
-through the VPU at the measured 0.165 ms per 4096^2 round -- the regime
-where the sweep_scipy dense cells currently lose to scipy's Hungarian on
-the host path (README sweep table; on-chip A/B queued in tools/on_chip.sh).
+Why it exists: a fully dense cost matrix through the ELL path pays one
+random price gather per entry; the dense formulation streams contiguous
+[C, m] rows instead.
 """
 
 import numpy as np
@@ -39,6 +37,24 @@ def test_dense_engine_exact_vs_scipy():
     assert res["meta"]["mode"] == "hybrid"
     assert res["meta"]["engine"] == "dense"
     assert res["meta"]["obj"] == scipy_obj(C)
+
+
+def test_dense_engine_long_tail_within_budget():
+    # A 2048^2 integer instance whose eps_min host tail needs ~1.32M bids:
+    # the dense engine's tail budget used to be 100n + 1M (~1.2M here),
+    # so a feasible instance came back soln_found=False.
+    from sslap_tpu.hybrid import native_available
+    if not native_available():
+        pytest.skip("native toolchain unavailable")
+    rng = np.random.default_rng(0)
+    rng.integers(1, 1000, (256, 256))
+    C = rng.integers(1, 1000, (2048, 2048))
+    res = auction_solve(C, mode="hybrid", engine="dense",
+                        cardinality_check=False)
+    assert res["meta"]["soln_found"]
+    assert res["meta"]["host_bids"] > 100 * 2048 + 1_000_000
+    r, c = linear_sum_assignment(C)
+    assert res["meta"]["obj"] == int(C[r, c].sum())
 
 
 def test_dense_engine_forbidden_entries():
